@@ -253,100 +253,3 @@ class TestWatertight:
             watertight=True,
         )
         assert int((np.asarray(tri) < 0).sum()) == 0
-
-
-class TestWatertightProduction:
-    """The edge-crack and vertex-fan scenarios against the PRODUCTION
-    kernels (v2 packet + binned), not just the watertight oracle: the
-    Baldwin-Weber drain accepts a conservative containment band
-    (u, v >= -1e-5, u+v <= 1+1e-5), so a point exactly on a shared
-    edge/vertex hits at least one adjacent triangle — potential cracks
-    become harmless double-acceptance (round-3 verdict task 5)."""
-
-    def _quad_diagonal_rays(self):
-        a = np.array([0, 0, 0], np.float32)
-        b = np.array([1, 0, 0], np.float32)
-        c = np.array([1, 1, 0], np.float32)
-        dd = np.array([0, 1, 0], np.float32)
-        v0 = np.stack([a, a])
-        v1 = np.stack([b, c])
-        v2 = np.stack([c, dd])
-        s = np.linspace(0.001, 0.999, 997, dtype=np.float32)
-        pts = np.stack([s, s, np.zeros_like(s)], axis=1)
-        o = np.array([[0.3, -0.2, 5.0]], np.float32) + np.array(
-            [[0.1, 0.05, 0.0]], np.float32
-        ) * s[:, None]
-        d = pts - o
-        d /= np.linalg.norm(d, axis=1, keepdims=True)
-        return (v0, v1, v2), o, d
-
-    def test_packet_kernel_no_cracks_on_shared_edge(self):
-        from tracerboy_tpu.trace.pallas_traverse import (
-            pack_scene_for_pallas,
-        )
-        from tracerboy_tpu.trace.pallas_traverse2 import traverse_packets2
-
-        (v0, v1, v2), o, d = self._quad_diagonal_rays()
-        packed, _ = pack_scene_for_pallas(v0, v1, v2)
-        t, tri, _, _ = traverse_packets2(
-            jnp.asarray(o), jnp.asarray(d),
-            jnp.full((o.shape[0],), 1e30, jnp.float32), packed,
-            interpret=True,
-        )
-        misses = int((np.asarray(tri) < 0).sum())
-        assert misses == 0, f"{misses} cracks on the shared edge"
-
-    def test_binned_no_cracks_on_shared_edge(self):
-        from tracerboy_tpu.trace.binned import (
-            binned_closest,
-            pack_scene_binned,
-        )
-        from tracerboy_tpu.trace.pallas_traverse import (
-            pack_scene_for_pallas,
-        )
-
-        (v0, v1, v2), o, d = self._quad_diagonal_rays()
-        packed, _ = pack_scene_for_pallas(v0, v1, v2)
-        scene = dict(
-            pk_nodes=packed["nodes"], pk_tris_bw=packed["tris_bw"],
-            world_lo=jnp.asarray(
-                np.minimum(np.minimum(v0, v1), v2).min(0)),
-            world_hi=jnp.asarray(
-                np.maximum(np.maximum(v0, v1), v2).max(0)),
-            **pack_scene_binned(packed["tris"]),
-        )
-        t, tri, _, _ = binned_closest(
-            scene, jnp.asarray(o), jnp.asarray(d),
-            jnp.full((o.shape[0],), 1e30, jnp.float32), interpret=True,
-        )
-        misses = int((np.asarray(tri) < 0).sum())
-        assert misses == 0, f"{misses} cracks on the shared edge"
-
-    def test_packet_kernel_vertex_fan(self):
-        from tracerboy_tpu.trace.pallas_traverse import (
-            pack_scene_for_pallas,
-        )
-        from tracerboy_tpu.trace.pallas_traverse2 import traverse_packets2
-
-        apex = np.array([0.5, 0.5, 0.0], np.float32)
-        k = 8
-        ang = np.linspace(0, 2 * np.pi, k + 1)
-        ring = np.stack(
-            [0.5 + np.cos(ang), 0.5 + np.sin(ang), np.zeros(k + 1)],
-            axis=1,
-        ).astype(np.float32)
-        v0 = np.broadcast_to(apex, (k, 3)).copy()
-        v1 = ring[:-1]
-        v2 = ring[1:]
-        o = np.tile(np.array([[1.7, -2.1, 7.0]], np.float32), (64, 1))
-        o += np.linspace(0, 0.3, 64, dtype=np.float32)[:, None] * np.array(
-            [[0.5, 1.0, 0.0]], np.float32
-        )
-        d = apex - o
-        d /= np.linalg.norm(d, axis=1, keepdims=True)
-        packed, _ = pack_scene_for_pallas(v0, v1, v2)
-        t, tri, _, _ = traverse_packets2(
-            jnp.asarray(o), jnp.asarray(d),
-            jnp.full((64,), 1e30, jnp.float32), packed, interpret=True,
-        )
-        assert int((np.asarray(tri) < 0).sum()) == 0

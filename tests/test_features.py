@@ -358,43 +358,30 @@ class TestRoughRefraction:
         assert cos_means[0.6] < cos_means[0.1]
 
 
-@pytest.mark.slow
-def test_heatmap_aov_nonzero_on_pallas(tmp_path):
-    """The traversal-cost heatmap must be non-zero on the pallas backend
-    (round-2 gap: render_wave hardwired cost = 0 there). The primary
-    dispatch runs the v2 kernel's stats mode when the heatmap output is
-    selected."""
+def test_heatmap_aov_nonzero_on_bvh_backend():
+    """The traversal-cost heatmap AOV carries the lock-step traversal's
+    per-ray box + triangle test counts (TraverseFunction.hlsli:46-47)."""
     import dataclasses
     import os
 
-    import tracerboy_tpu.trace.pallas_traverse2 as pt2
-    from tests.test_pallas import _patch_interpret
-    from tests.conftest import SCENES_ROOT
+    import tests.conftest as c
     from tracerboy_tpu.renderer import Renderer
     from tracerboy_tpu.utils.config import OutputType
 
-    scene_path = os.path.join(SCENES_ROOT, "cornell-box", "scene.pbrt")
-    if not os.path.exists(scene_path):
-        import pytest
-
-        pytest.skip("cornell-box scene missing")
-    orig = _patch_interpret(pt2)
+    scene_path = c.require_scene("cornell-box/scene.pbrt")
+    os.environ["TB_TRAVERSAL"] = "jnp"
     try:
-        os.environ["TB_TRAVERSAL"] = "pallas"
-        os.environ["TB_BINNED"] = "0"   # packet path end to end
         r = Renderer(scene_path, film_size=(32, 24))
-        r.settings = dataclasses.replace(
-            r.settings, output_type=OutputType.HEATMAP
-        )
-        r.render_sample(1)
-        hm = np.asarray(r._last_aovs["heatmap"])
-        assert hm.max() > 0          # counters reached the AOV
-        img = r.current_image()
-        assert np.isfinite(img).all()
     finally:
         os.environ.pop("TB_TRAVERSAL", None)
-        os.environ.pop("TB_BINNED", None)
-        pt2.traverse_packets2, pt2.anyhit_packets2 = orig
+    r.settings = dataclasses.replace(
+        r.settings, output_type=OutputType.HEATMAP
+    )
+    r.render_sample(1)
+    hm = np.asarray(r._last_aovs["heatmap"])
+    assert hm.max() > 0          # counters reached the AOV
+    img = r.current_image()
+    assert np.isfinite(img).all()
 
 
 class TestTransparentShadows:

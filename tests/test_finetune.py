@@ -20,18 +20,16 @@ def test_params_npz_roundtrip(tmp_path):
     import jax
 
     from tracerboy_tpu.ml.finetune import load_params_npz, save_params_npz
-    from tracerboy_tpu.ml.oidn import OIDNUNet
+    from tracerboy_tpu.ml.oidn import in_channels, init_params, unet_apply
 
-    model = OIDNUNet(in_channels=3)
-    variables = model.init(jax.random.PRNGKey(0),
-                           np.zeros((1, 32, 32, 3), np.float32))
+    params = init_params(jax.random.PRNGKey(0), 3)
     path = str(tmp_path / "w.npz")
-    save_params_npz(path, variables["params"])
-    model2, v2 = load_params_npz(path)
-    assert model2.in_channels == 3
+    save_params_npz(path, params)
+    p2 = load_params_npz(path)
+    assert in_channels(p2) == 3
     x = np.random.default_rng(0).random((1, 32, 32, 3), np.float32)
-    a = model.apply(variables, x)
-    b = model2.apply(v2, x)
+    a = unet_apply(params, x)
+    b = unet_apply(p2, x)
     # float16 storage: outputs agree to half precision
     np.testing.assert_allclose(np.asarray(a), np.asarray(b),
                                rtol=0.02, atol=0.02)
@@ -43,7 +41,7 @@ def test_finetune_smoke(tmp_path, monkeypatch):
     import jax
 
     import tracerboy_tpu.ml.finetune as ft
-    from tracerboy_tpu.ml.oidn import OIDNUNet
+    from tracerboy_tpu.ml.oidn import init_params
 
     rng = np.random.default_rng(1)
     clean = rng.random((6, 32, 32, 3), np.float32) * 0.5
@@ -56,23 +54,21 @@ def test_finetune_smoke(tmp_path, monkeypatch):
              view=np.arange(6, dtype=np.int32),
              meta=np.asarray([8, 128], np.int32))
 
-    # random-init tza substitute: intercept load_oidn
-    model = OIDNUNet(in_channels=3)
-    variables = model.init(jax.random.PRNGKey(0),
-                           np.zeros((1, 32, 32, 3), np.float32))
+    # random-init weights substitute: intercept load_oidn
+    params = init_params(jax.random.PRNGKey(0), 3)
     monkeypatch.setattr(
-        "tracerboy_tpu.ml.oidn.load_oidn", lambda path: (model, variables))
+        "tracerboy_tpu.ml.oidn.load_oidn", lambda path: params)
 
     out = str(tmp_path / "ft.npz")
     logs = []
-    h0, h1 = ft.finetune(data, out, init_tza="ignored", steps=3,
+    h0, h1 = ft.finetune(data, out, init_weights="ignored", steps=3,
                          lr=1e-3, batch=2, holdout_views=2,
                          log_every=1, progress=logs.append)
     assert np.isfinite(h0) and np.isfinite(h1)
     assert any("step 3/3" in m for m in logs)
-    _, v2 = ft.load_params_npz(out)
-    k0 = np.asarray(variables["params"]["enc_conv0"]["kernel"])
-    k1 = np.asarray(v2["params"]["enc_conv0"]["kernel"])
+    p2 = ft.load_params_npz(out)
+    k0 = np.asarray(params["enc_conv0"]["kernel"])
+    k1 = np.asarray(p2["enc_conv0"]["kernel"])
     assert not np.allclose(k0, k1), "params did not move"
 
 

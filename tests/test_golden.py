@@ -99,7 +99,8 @@ class TestFidelityGateFast:
             dtype=np.float32,
         ) / 255.0
 
-        path = c.require_scene("cornell-box/scene.pbrt")
+        # The golden was rendered from the reference's own Cornell box.
+        path = c.require_reference_scene("cornell-box/scene.pbrt")
         r = Renderer(path, film_size=(size, size))
         r.render_sample(24)
         img = np.clip(np.asarray(r.resolve_radiance()), 0, 1) ** (1 / 2.2)

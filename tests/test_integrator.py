@@ -255,6 +255,24 @@ class TestAOVs:
         )
 
 
+@pytest.mark.parametrize("backend", ["brute", "jnp"])
+def test_set_material_rebuilds_backend_pytree(backend, monkeypatch):
+    """A live material edit rebuilds the scene pytree for the same
+    traversal backend, and the next render still runs."""
+    import tests.conftest as c
+
+    path = c.require_scene("cornell-box/scene.pbrt")
+    monkeypatch.setenv("TB_TRAVERSAL", backend)
+    r = Renderer(path, film_size=(16, 16))
+    assert r.traversal == backend
+    r.render_sample()
+    r.set_material(0, albedo=[0.9, 0.1, 0.1])
+    assert r.traversal == backend
+    r.render_sample()
+    img = np.asarray(r.resolve_radiance())
+    assert np.isfinite(img).all()
+
+
 def _bench_like_setup(film=(32, 24), traversal=None, want_aovs=False):
     """Reproduce bench.py's _wave_step environment exactly (the shapes
     the harness dispatches MUST be pinned by tests — round-3 regression,

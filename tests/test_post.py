@@ -181,19 +181,15 @@ class TestML:
         assert len([k for k in w if k.endswith(".weight")]) == 16
 
     def test_oidn_smooths(self, rng):
-        import os
-
-        path = "/root/reference/TracerBoy/ML/rt_ldr.tza"
-        if not os.path.exists(path):
-            pytest.skip("reference weights not present")
+        """The committed UNet weights (ml/weights/rt_ldr_ft.npz)."""
         from tracerboy_tpu.ml.oidn import load_oidn, denoise_image
 
-        model, variables = load_oidn(path)
+        params = load_oidn()
         noisy = jnp.asarray(
             np.clip(0.5 + rng.normal(0, 0.2, (32, 48, 3)), 0, 1),
             jnp.float32,
         )
-        out = denoise_image(model, variables, noisy)
+        out = denoise_image(params, noisy)
         assert out.shape == (32, 48, 3)
         tv = lambda im: float(jnp.abs(jnp.diff(im, axis=0)).mean())
         assert tv(out) < tv(noisy) / 3

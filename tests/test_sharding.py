@@ -95,46 +95,6 @@ def test_tiled_nondivisible_padding(small_scene):
     np.testing.assert_allclose(tiled, single, atol=1e-5)
 
 
-@pytest.mark.slow
-def test_tiled_pallas_backend(small_scene):
-    """The pallas packet backend under tile sharding (interpret kernels
-    on the CPU mesh) matches the brute single-device render."""
-    import dataclasses
-
-    import tests.conftest as c
-    from tests.test_pallas import _patch_interpret
-    import tracerboy_tpu.trace.pallas_traverse2 as pt2
-
-    path = c.require_scene("cornell-box/scene.pbrt")
-    cs = load_scene(path, use_cache=False, film_size=(16, 16))
-    scene = cs.as_pytree(pack_pallas=True)
-    params = dict(
-        dof_focus=jnp.float32(0.0), dof_aperture=jnp.float32(0.0),
-        firefly_clamp=jnp.float32(0.0), seed=jnp.int32(0),
-    )
-    base = WaveConfig(
-        width=16, height=16, max_bounces=2, leaf_size=cs.leaf_size,
-        num_lights=cs.num_lights, has_env=cs.has_env,
-        use_blue_noise=False,
-    )
-    cfg_p = dataclasses.replace(base, traversal="pallas")
-    cfg_b = dataclasses.replace(base, traversal="brute")
-    mesh = make_mesh()
-    ids = jnp.arange(16 * 16, dtype=jnp.int32)
-    orig_c, orig_a = _patch_interpret(pt2)
-    try:
-        out = render_wave_tiled(mesh, scene, params, ids, jnp.int32(0),
-                                cfg_p)
-        tiled = np.asarray(out["radiance"])
-    finally:
-        pt2.traverse_packets2 = orig_c
-        pt2.anyhit_packets2 = orig_a
-    single = np.asarray(
-        render_wave(scene, params, ids, jnp.int32(0), cfg_b)["radiance"]
-    )
-    np.testing.assert_allclose(tiled, single, atol=1e-4)
-
-
 @pytest.fixture(scope="module")
 def cornell_path():
     import tests.conftest as c

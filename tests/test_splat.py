@@ -12,7 +12,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-CORNELL = "/root/reference/Scenes/cornell-box/scene.pbrt"
+CORNELL = os.path.join(os.path.dirname(__file__), "scenes", "cornell-box",
+                       "scene.pbrt")
 
 
 def _numpy_splat(rad, ju, jv, W, H):

@@ -4,7 +4,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from tracerboy_tpu.core.gather import take_rows
+from tracerboy_tpu.shade.surface import _take_cols
 from tracerboy_tpu.utils.config import (
     default_output_settings,
     invalidates_history,
@@ -12,30 +12,83 @@ from tracerboy_tpu.utils.config import (
 from tracerboy_tpu.utils.profiling import FrameStats, scope
 
 
+def _one_hot_cols(table_t, idx):
+    """The one-hot product formula the column lookups replace, in f64:
+    (k, M) @ one_hot(idx) (M, N)."""
+    t = np.asarray(table_t, np.float64)
+    oh = (np.arange(t.shape[1])[:, None] == np.asarray(idx)[None, :])
+    return t @ oh.astype(np.float64)
+
+
 class TestGather:
+    """Material/light table lookups are plain gathers; they must equal
+    the one-hot product formula exactly, integer-valued columns (flags,
+    texture ids, light types) included."""
+
     def test_one_hot_matches_take_float(self, rng):
-        table = jnp.asarray(rng.random((8, 5)).astype(np.float32))
+        table_t = jnp.asarray(rng.random((21, 8)).astype(np.float32))
         idx = jnp.asarray(rng.integers(0, 8, 100).astype(np.int32))
-        np.testing.assert_allclose(
-            np.asarray(take_rows(table, idx)), np.asarray(table[idx]),
-            rtol=1e-6,
+        np.testing.assert_array_equal(
+            np.asarray(_take_cols(table_t, idx)),
+            _one_hot_cols(table_t, idx).astype(np.float32),
         )
 
     def test_one_hot_matches_take_int(self, rng):
-        table = jnp.asarray(
-            rng.integers(-4, 1 << 20, (16, 3)).astype(np.int32)
-        )
+        # Integer columns ride the f32 table (|v| < 2^24 is exact).
+        ints = rng.integers(-4, 1 << 20, (3, 16)).astype(np.float32)
+        table_t = jnp.asarray(ints)
         idx = jnp.asarray(rng.integers(0, 16, 64).astype(np.int32))
+        got = np.asarray(_take_cols(table_t, idx))
+        np.testing.assert_array_equal(got, _one_hot_cols(ints, idx))
         np.testing.assert_array_equal(
-            np.asarray(take_rows(table, idx)), np.asarray(table[idx])
-        )
+            np.round(got).astype(np.int32), got.astype(np.int32))
 
     def test_large_table_falls_back_to_gather(self, rng):
-        table = jnp.asarray(rng.random((1000, 2)).astype(np.float32))
+        table_t = jnp.asarray(rng.random((2, 1000)).astype(np.float32))
         idx = jnp.asarray(rng.integers(0, 1000, 32).astype(np.int32))
         np.testing.assert_array_equal(
-            np.asarray(take_rows(table, idx)), np.asarray(table[idx])
+            np.asarray(_take_cols(table_t, idx)),
+            np.asarray(table_t)[:, np.asarray(idx)],
         )
+
+    @pytest.mark.parametrize("has_mix", [False, True])
+    def test_material_fetch_matches_one_hot(self, rng, has_mix):
+        """fetch_material_soa's gathered record equals the one-hot
+        formula on the shadertoy scene's material table."""
+        from tracerboy_tpu.scene.compile import load_scene
+        from tracerboy_tpu.shade.surface import (
+            _mat_table_t,
+            fetch_material_soa,
+        )
+
+        scene = load_scene("shadertoy", film_size=(8, 8)).as_pytree()
+        M = scene["materials"]["flags"].shape[0]
+        mid = jnp.asarray(rng.integers(0, M, 257).astype(np.int32))
+        mat = fetch_material_soa(
+            scene, mid, jnp.zeros(257), jnp.zeros(257),
+            jnp.zeros(257, bool), jnp.arange(257), jnp.int32(0), 0,
+            has_mix=has_mix, has_textures=False,
+        )
+        ref = _one_hot_cols(_mat_table_t(scene["materials"]), mid)
+        np.testing.assert_array_equal(
+            np.asarray(mat["ior"]), ref[6].astype(np.float32))
+        np.testing.assert_array_equal(
+            np.asarray(mat["flags"]), np.round(ref[15]).astype(np.int32))
+
+    def test_light_rows_match_one_hot(self, rng):
+        from tracerboy_tpu.scene.compile import load_scene
+        from tracerboy_tpu.shade.nee import _light_rows, _light_table_t
+
+        scene = load_scene("shadertoy:cornell", film_size=(8, 8))
+        lights = {k: jnp.asarray(v) for k, v in scene.lights.items()}
+        L = scene.num_lights
+        idx = jnp.asarray(rng.integers(0, L, 99).astype(np.int32))
+        rows = _light_rows(lights, idx)
+        ref = _one_hot_cols(_light_table_t(lights), idx)
+        np.testing.assert_array_equal(
+            np.asarray(rows["color"]), ref[18:21].T.astype(np.float32))
+        np.testing.assert_array_equal(
+            np.asarray(rows["ltype"]), np.round(ref[22]).astype(np.int32))
 
 
 class TestConfig:
@@ -117,8 +170,7 @@ class TestSceneFacts:
     def test_cornell_facts(self):
         from tracerboy_tpu.renderer import Renderer
 
-        r = Renderer("/root/reference/Scenes/cornell-box/scene.pbrt",
-                     film_size=(32, 32))
+        r = Renderer("shadertoy:cornell", film_size=(32, 32))
         cfg = r.wave_config()
         assert not cfg.has_textures
         assert not cfg.has_image_tex
@@ -128,22 +180,19 @@ class TestSceneFacts:
         assert cfg.traversal == "brute"
 
     def test_teapot_facts(self):
+        """The procedural benchmark scene (spheres over a checker floor
+        under an env dome): textured, env-lit, above the brute-force
+        crossover."""
         from tracerboy_tpu.renderer import Renderer
 
-        r = Renderer("/root/reference/Scenes/Teapot/scene.pbrt",
-                     film_size=(32, 32))
+        r = Renderer("shadertoy", film_size=(32, 32))
         cfg = r.wave_config()
         assert cfg.has_textures          # checker floor
         assert not cfg.has_image_tex     # procedural only
         assert not cfg.has_scale_tex
         assert not cfg.has_emissive_tex
         assert cfg.has_env
-        # Policy: packet kernel on TPU, portable lock-step elsewhere
-        # (Pallas only runs compiled on TPU).
-        import jax
-
-        expect = "pallas" if jax.default_backend() == "tpu" else "jnp"
-        assert cfg.traversal == expect
+        assert cfg.traversal == "jnp"
 
 
 def test_checkpoint_realtime_history_roundtrip(tmp_path):
@@ -151,9 +200,8 @@ def test_checkpoint_realtime_history_roundtrip(tmp_path):
     indirect, raw, AOVs) and governor pad survive checkpoint/resume, so
     a resumed RealTime session keeps its converged history."""
     import dataclasses
-    import os
 
-    from tests.conftest import SCENES_ROOT
+    import tests.conftest as c
     from tracerboy_tpu.renderer import Renderer
     from tracerboy_tpu.utils.checkpoint import (
         load_render_checkpoint,
@@ -161,11 +209,7 @@ def test_checkpoint_realtime_history_roundtrip(tmp_path):
     )
     from tracerboy_tpu.utils.config import RenderMode
 
-    scene = os.path.join(SCENES_ROOT, "cornell-box", "scene.pbrt")
-    if not os.path.exists(scene):
-        import pytest
-
-        pytest.skip("cornell-box scene missing")
+    scene = c.require_scene("cornell-box/scene.pbrt")
     r1 = Renderer(scene, film_size=(16, 16))
     r1.settings = dataclasses.replace(
         r1.settings, render_mode=RenderMode.REAL_TIME
@@ -197,9 +241,8 @@ def test_checkpoint_realtime_lazy_resume(tmp_path):
     (no prior warmup frame): the pending path restores the history on
     the first fused frame instead of silently dropping it."""
     import dataclasses
-    import os
 
-    from tests.conftest import SCENES_ROOT
+    import tests.conftest as c
     from tracerboy_tpu.renderer import Renderer
     from tracerboy_tpu.utils.checkpoint import (
         load_render_checkpoint,
@@ -207,11 +250,7 @@ def test_checkpoint_realtime_lazy_resume(tmp_path):
     )
     from tracerboy_tpu.utils.config import RenderMode
 
-    scene = os.path.join(SCENES_ROOT, "cornell-box", "scene.pbrt")
-    if not os.path.exists(scene):
-        import pytest
-
-        pytest.skip("cornell-box scene missing")
+    scene = c.require_scene("cornell-box/scene.pbrt")
     r1 = Renderer(scene, film_size=(16, 16))
     r1.settings = dataclasses.replace(
         r1.settings, render_mode=RenderMode.REAL_TIME
@@ -240,9 +279,8 @@ def test_checkpoint_legacy_scalar_diffuse_contrib(tmp_path):
     """Checkpoints written before the diffuse_contrib history grew from
     (H, W) to (H, W, 3) still restore (the scalar plane broadcasts)."""
     import dataclasses
-    import os
 
-    from tests.conftest import SCENES_ROOT
+    import tests.conftest as c
     from tracerboy_tpu.renderer import Renderer
     from tracerboy_tpu.utils.checkpoint import (
         _flatten_tree,
@@ -250,11 +288,7 @@ def test_checkpoint_legacy_scalar_diffuse_contrib(tmp_path):
     )
     from tracerboy_tpu.utils.config import RenderMode
 
-    scene = os.path.join(SCENES_ROOT, "cornell-box", "scene.pbrt")
-    if not os.path.exists(scene):
-        import pytest
-
-        pytest.skip("cornell-box scene missing")
+    scene = c.require_scene("cornell-box/scene.pbrt")
     r = Renderer(scene, film_size=(16, 16))
     r.settings = dataclasses.replace(
         r.settings, render_mode=RenderMode.REAL_TIME

@@ -214,9 +214,9 @@ class TestVolumeRender:
         from tracerboy_tpu.renderer import Renderer
         from tracerboy_tpu.scene.volume import procedural_cloud
 
-        path = "/root/reference/Scenes/cornell-box/scene.pbrt"
-        if not os.path.exists(path):
-            pytest.skip("cornell scene not present")
+        import tests.conftest as c
+
+        path = c.require_scene("cornell-box/scene.pbrt")
         vol = procedural_cloud(n=16)
         # Place the cloud inside the cornell box.
         vol.lo = np.array([-0.6, 0.3, -0.4], np.float32)
@@ -239,9 +239,9 @@ class TestVolumeRender:
         )
         from tracerboy_tpu.scene.compile import load_scene
 
-        path = "/root/reference/Scenes/cornell-box/scene.pbrt"
-        if not os.path.exists(path):
-            pytest.skip("cornell scene not present")
+        import tests.conftest as c
+
+        path = c.require_scene("cornell-box/scene.pbrt")
         cs = load_scene(path, use_cache=False, film_size=(32, 32))
         import dataclasses
 
@@ -385,9 +385,9 @@ class TestVolumeLightMIS:
 
         from tracerboy_tpu.renderer import Renderer
 
-        path = "/root/reference/Scenes/cornell-box/scene.pbrt"
-        if not os.path.exists(path):
-            pytest.skip("cornell scene not present")
+        import tests.conftest as c
+
+        path = c.require_scene("cornell-box/scene.pbrt")
         vol = procedural_cloud(n=8)
         vol.lo = np.array([-0.6, 0.3, -0.4], np.float32)
         vol.hi = np.array([0.6, 1.5, 0.6], np.float32)

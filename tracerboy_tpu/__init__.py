@@ -1,10 +1,11 @@
-"""tracerboy-tpu: a TPU-native physically-based progressive path tracer.
+"""tracerboy-tpu: a physically-based progressive path tracer in JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of wallisc/TracerBoy
-(C++/DX12/HLSL GPU path tracer). The reference's megakernel + DXR design is
-replaced by a wavefront pipeline (raygen -> traverse -> shade -> compact) over
-flat ray pools, with the BVH stored as a flattened structure-of-arrays in HBM
-and traversed by vectorized masked kernels. See SURVEY.md at the repo root for
+A from-scratch JAX/XLA rebuild of the capabilities of wallisc/TracerBoy
+(C++/DX12/HLSL GPU path tracer), run on an NVIDIA GPU. The reference's
+megakernel + DXR design is replaced by a wavefront pipeline (raygen ->
+traverse -> shade) over flat ray pools, with the BVH stored as a flattened
+structure-of-arrays in device memory and traversed by vectorized masked
+kernels. See SURVEY.md at the repo root for
 the full component inventory being rebuilt.
 """
 

@@ -2,25 +2,19 @@
 
 The host-runtime native component replacing the reference's C++/HLSL
 acceleration-structure build stack (D3D12RaytracingFallback, SURVEY.md
-2.5). Builds `native/libtbbvh.so` on demand with g++ and falls back to
-the pure-numpy LBVH builder when no toolchain is available.
+2.5). Builds native/bvh_builder.cpp on first use with g++
+(utils/native_build.py) and falls back to the pure-numpy LBVH builder
+when no toolchain is available.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
 
 import numpy as np
 
 from tracerboy_tpu.accel.bvh import WideBVH
-
-_REPO_ROOT = os.path.dirname(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-)
-_SRC = os.path.join(_REPO_ROOT, "native", "bvh_builder.cpp")
-_SO = os.path.join(_REPO_ROOT, "native", "libtbbvh.so")
 
 _lib = None
 _lib_failed = False
@@ -31,16 +25,9 @@ def _load():
     if _lib is not None or _lib_failed:
         return _lib
     try:
-        if not os.path.exists(_SO) or (
-            os.path.exists(_SRC)
-            and os.path.getmtime(_SRC) > os.path.getmtime(_SO)
-        ):
-            subprocess.run(
-                ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-                 "-o", _SO, _SRC],
-                check=True, capture_output=True,
-            )
-        lib = ctypes.CDLL(_SO)
+        from tracerboy_tpu.utils.native_build import build_native
+
+        lib = ctypes.CDLL(build_native("bvh_builder.cpp"))
         lib.tb_bvh_build.restype = ctypes.c_void_p
         lib.tb_bvh_build.argtypes = [
             ctypes.POINTER(ctypes.c_float), ctypes.c_int32, ctypes.c_int32,

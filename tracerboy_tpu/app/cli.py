@@ -62,13 +62,14 @@ def build_parser():
                    choices=["albedo", "normal", "depth", "luminance"],
                    help="write this AOV instead of the lit image")
     p.add_argument("--denoiser", default="none",
-                   choices=["none", "oidn", "oidn-ldr", "oidn-alb-nrm",
-                            "oidn-clip", "oidn-alb-nrm-clip"],
-                   help="ML denoise the final image. oidn = color-only "
-                        "rt_ldr (the reference default, OpenImageDenoise"
-                        ".h:219); oidn-alb-nrm = albedo+normal-guided")
-    p.add_argument("--upscale", default=None, choices=["fsr", "superres"],
-                   help="2x upscale the output")
+                   choices=["none", "oidn", "oidn-clip"],
+                   help="ML denoise the final image with the committed "
+                        "colour-only UNet (ml/weights/rt_ldr_ft.npz, the "
+                        "fine-tuned rt_ldr of OpenImageDenoise.h:219). "
+                        "oidn runs it on the invertible Reinhard "
+                        "encoding; oidn-clip on clipped radiance")
+    p.add_argument("--upscale", default=None, choices=["fsr"],
+                   help="2x upscale the output (FSR-style EASU+RCAS)")
     p.add_argument("--volume", default=None,
                    help="attach a heterogeneous medium: .vdb (OpenVDB "
                         "FloatGrid), .vol (Mitsuba grid), .npy density, "
@@ -84,11 +85,11 @@ def build_parser():
                    help="checkpoint every N samples")
     p.add_argument("--shard", default="none",
                    choices=["none", "tiles", "spp"],
-                   help="multi-chip scaling axis over all visible "
+                   help="multi-device scaling axis over all visible "
                         "devices: tiles = pixel pool split across the "
-                        "mesh (zero-comm waves); spp = every chip "
+                        "mesh (zero-comm waves); spp = every device "
                         "traces different sample indices, accumulators "
-                        "psum-merge over ICI")
+                        "psum-merge across the mesh")
     p.add_argument("--devices", type=int, default=None,
                    help="number of devices for --shard (default: all)")
     p.add_argument("--seed", type=int, default=0)
@@ -99,7 +100,10 @@ def build_parser():
     return p
 
 
-def main(argv=None):
+def main(argv=None, stats: dict | None = None):
+    """Run the CLI; returns the exit code. `stats`, when given, is
+    filled with the run's counters: rays traced, samples or frames,
+    and the renderer's wall seconds (scene load to final image)."""
     args = build_parser().parse_args(argv)
 
     if args.export_pbf:
@@ -109,6 +113,10 @@ def main(argv=None):
         write_pbf(args.export_pbf, parse_pbrt(args.scene))
         print(f"wrote {args.export_pbf}")
         return 0
+
+    from tracerboy_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from tracerboy_tpu import Renderer
     from tracerboy_tpu.core import image_io
@@ -229,36 +237,35 @@ def main(argv=None):
                 log("time limit reached")
                 break
         img = r.current_image()
+    if stats is not None:
+        stats.update(
+            rays_traced=r.rays_traced, spp=r.state.spp,
+            frames=args.frames if args.mode == "realtime" else 0,
+            seconds=time.time() - t0,
+        )
+    log(f"{r.rays_traced / 1e6:.1f} Mrays traced")
 
     import numpy as np
     import jax.numpy as jnp
 
-    if args.denoiser.startswith("oidn"):
+    if args.denoiser != "none":
         from tracerboy_tpu.post.pipeline import display_transform
 
-        model = ("rt_ldr_alb_nrm" if "alb-nrm" in args.denoiser
-                 else "rt_ldr")
-        transfer = "clip" if args.denoiser.endswith("-clip") else "reinhard"
-        den_lin = r.denoise(model=model, transfer=transfer)
+        transfer = "clip" if args.denoiser == "oidn-clip" else "reinhard"
+        den_lin = r.denoise(transfer=transfer)
         ps = r.settings.post_settings
         img = np.asarray(display_transform(
             jnp.asarray(den_lin), ps.exposure_multiplier,
             int(ps.tonemap_type), ps.enable_gamma_correction,
             ps.enable_auto_exposure,
         ))
-        log(f"denoised (OIDN UNet, {model}, {transfer} transfer)")
+        log(f"denoised (OIDN UNet, {transfer} transfer)")
 
     if args.upscale == "fsr":
         from tracerboy_tpu.ml.fsr import fsr_upscale
 
         img = np.asarray(fsr_upscale(jnp.asarray(img)))
         log("upscaled 2x (FSR-style EASU+RCAS)")
-    elif args.upscale == "superres":
-        from tracerboy_tpu.ml.superres import load_superres, upscale2x
-
-        p = load_superres("/root/reference/TracerBoy/ML/weights.bin")
-        img = np.asarray(upscale2x(p, jnp.asarray(img)))
-        log("upscaled 2x (super-resolution CNN)")
 
     image_io.write_png(args.out, img)
     log(f"wrote {args.out}")

@@ -6,7 +6,8 @@ here is host-side numpy; results feed the scene compiler which moves arrays to
 device.
 
 Formats:
-- PNG/JPG/TGA/BMP: via PIL.
+- PNG output: written with the standard library (zlib + struct).
+- PNG/JPG/TGA/BMP input: via PIL (optional; only `read_ldr` needs it).
 - Radiance HDR (RGBE, RLE): from the published file format spec.
 - PFM: trivial float format (the reference renames .pfm -> .hdr as a hack;
   we read it natively).
@@ -25,12 +26,18 @@ import numpy as np
 
 
 # ----------------------------------------------------------------------------
-# PNG & friends (PIL)
+# PNG & friends
 
 
 def read_ldr(path: str, gamma_to_linear: bool = False) -> np.ndarray:
-    """Read an LDR image to float32 RGB(A) in [0,1]."""
-    from PIL import Image
+    """Read an LDR image to float32 RGB(A) in [0,1] (needs PIL)."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(
+            f"read_ldr({path!r}) needs the PIL (Pillow) package to decode "
+            "PNG/JPG/TGA/BMP images"
+        ) from e
 
     img = Image.open(path)
     if img.mode not in ("RGB", "RGBA"):
@@ -43,13 +50,32 @@ def read_ldr(path: str, gamma_to_linear: bool = False) -> np.ndarray:
 
 
 def write_png(path: str, img: np.ndarray) -> None:
-    """Write a float image in [0,1] (H, W, 3|4) or uint8 as PNG."""
-    from PIL import Image
-
+    """Write a float image in [0,1] or uint8, (H, W) grey or (H, W, 3|4)
+    RGB(A), as an 8-bit non-interlaced PNG."""
+    img = np.asarray(img)
     if img.dtype != np.uint8:
-        img = np.clip(np.asarray(img), 0.0, 1.0)
-        img = (img * 255.0 + 0.5).astype(np.uint8)
-    Image.fromarray(img).save(path)
+        img = (np.clip(img, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+    if img.ndim == 2:
+        img = img[..., None]
+    h, w, c = img.shape
+    color_type = {1: 0, 3: 2, 4: 6}[c]
+    # Filter type 0 (None) on every scanline.
+    raw = np.concatenate(
+        [np.zeros((h, 1), np.uint8), img.reshape(h, w * c)], axis=1
+    ).tobytes()
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        body = tag + data
+        return (struct.pack(">I", len(data)) + body
+                + struct.pack(">I", zlib.crc32(body) & 0xFFFFFFFF))
+
+    png = (b"\x89PNG\r\n\x1a\n"
+           + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type,
+                                        0, 0, 0))
+           + chunk(b"IDAT", zlib.compress(raw, 6))
+           + chunk(b"IEND", b""))
+    with open(path, "wb") as f:
+        f.write(png)
 
 
 # ----------------------------------------------------------------------------

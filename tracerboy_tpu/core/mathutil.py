@@ -2,7 +2,7 @@
 
 The compute path works on flat structure-of-arrays ray pools, so every helper
 here is written to broadcast over arbitrary leading batch dimensions. This is
-the TPU-native replacement for the reference's per-thread HLSL vector math
+the data-parallel replacement for the reference's per-thread HLSL vector math
 (reference: TracerBoy/kernel.glsl:441-660 BRDF helpers and
 TracerBoy/kernel.glsl:1000-1015 ReorientVectorAroundNormal).
 """

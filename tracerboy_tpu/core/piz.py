@@ -1,24 +1,16 @@
 """PIZ-compressed EXR block reading via the native decoder.
 
 Bridges core/image_io.read_exr to native/piz_decoder.cpp (built on
-demand). PIZ is the format of the Tungsten golden renders shipped with
+first use, utils/native_build.py). PIZ is the format of the Tungsten golden renders shipped with
 the reference scenes.
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
 import struct
-import subprocess
 
 import numpy as np
-
-_REPO_ROOT = os.path.dirname(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-)
-_SRC = os.path.join(_REPO_ROOT, "native", "piz_decoder.cpp")
-_SO = os.path.join(_REPO_ROOT, "native", "libtbpiz.so")
 
 _lib = None
 
@@ -27,15 +19,9 @@ def _load():
     global _lib
     if _lib is not None:
         return _lib
-    if not os.path.exists(_SO) or (
-        os.path.exists(_SRC)
-        and os.path.getmtime(_SRC) > os.path.getmtime(_SO)
-    ):
-        subprocess.run(
-            ["g++", "-O3", "-shared", "-fPIC", "-o", _SO, _SRC],
-            check=True, capture_output=True,
-        )
-    lib = ctypes.CDLL(_SO)
+    from tracerboy_tpu.utils.native_build import build_native
+
+    lib = ctypes.CDLL(build_native("piz_decoder.cpp"))
     lib.tb_piz_uncompress.restype = ctypes.c_int
     lib.tb_piz_uncompress.argtypes = [
         ctypes.POINTER(ctypes.c_uint8), ctypes.c_int,

@@ -2,8 +2,8 @@
 
 The reference shader uses a per-thread `rand()` LCG plus Halton and blue-noise
 streams with Cranley-Patterson rotation (TracerBoy/RayGenCommon.h:49-122).
-On TPU we want stateless, counter-based randoms so every lane of a flat ray
-pool can compute its numbers with pure vector ALU ops, no carried state.
+Here randoms are stateless and counter-based, so every lane of a flat ray
+pool computes its numbers with pure elementwise ops, no carried state.
 
 We use the PCG3D/PCG4D hash family (Jarzynski & Olano, JCGT 2020 — public
 domain construction) keyed by (lane_id, sample_index, bounce, stream). Each
@@ -108,8 +108,8 @@ def uniform2(lane_id, sample_index, bounce, stream, seed=0, sampler="pcg"):
 
 
 def _pcg3d_soa(x, y, z):
-    """PCG3D on separate component arrays (dense (N,) layout — the
-    stacked variant pads 3 lanes to 128 on TPU)."""
+    """PCG3D on separate component arrays (dense (N,) layout, see
+    core/vec3.py)."""
     c1 = np.uint32(1664525)
     c2 = np.uint32(1013904223)
     x = x * c1 + c2

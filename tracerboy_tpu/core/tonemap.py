@@ -9,6 +9,7 @@ pure jnp and broadcasts over (..., 3) images.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -57,12 +58,18 @@ _ACES_OUTPUT = np.array(
 )
 
 
+def _mat3(color, m):
+    """color @ m.T in full f32 (a default-precision f32 matmul may run
+    in TF32 on the GPU)."""
+    return jnp.matmul(color, m.T, precision=jax.lax.Precision.HIGHEST)
+
+
 def aces_fitted(color: jnp.ndarray) -> jnp.ndarray:
-    c = color @ _ACES_INPUT.T
+    c = _mat3(color, _ACES_INPUT)
     a = c * (c + 0.0245786) - 0.000090537
     b = c * (0.983729 * c + 0.4329510) + 0.238081
     c = a / b
-    c = c @ _ACES_OUTPUT.T
+    c = _mat3(c, _ACES_OUTPUT)
     return jnp.clip(c, 0.0, 1.0)
 
 
@@ -140,14 +147,14 @@ def _agx_contrast_approx(x):
 
 
 def _agx_base(color):
-    c = color @ _AGX_TRANSFORM.T
+    c = _mat3(color, _AGX_TRANSFORM)
     c = jnp.clip(jnp.log2(jnp.maximum(c, 1e-10)), _AGX_MIN_EV, _AGX_MAX_EV)
     c = (c - _AGX_MIN_EV) / (_AGX_MAX_EV - _AGX_MIN_EV)
     return _agx_contrast_approx(c)
 
 
 def _agx_eotf(color):
-    return jnp.clip(color @ _AGX_INV_TRANSFORM.T, 0.0, 1.0)
+    return jnp.clip(_mat3(color, _AGX_INV_TRANSFORM), 0.0, 1.0)
 
 
 def agx(color: jnp.ndarray, punchy: bool = False) -> jnp.ndarray:

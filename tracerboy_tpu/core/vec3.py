@@ -1,11 +1,9 @@
 """Structure-of-arrays 3-vectors: tuples of (N,) component arrays.
 
-TPU lays out a rank-2 array by tiling its last two dims to (8, 128); an
-(N, 3) vector array therefore pads 3 lanes to 128 — a 42x waste in both
-memory traffic and VPU lane utilization, measured as the dominant cost of
-the first wavefront implementation. The hot compute path uses this SoA
-representation instead: a vector is a `V3` namedtuple of three (N,)
-arrays, each tiled densely.
+The hot compute path keeps per-ray vectors in structure-of-arrays form: a
+vector is a `V3` namedtuple of three (N,) arrays, so each component is a
+contiguous plane and elementwise stages read and write whole planes
+instead of strided (N, 3) rows.
 
 All functions broadcast over scalars and (N,) arrays alike.
 """

@@ -2,15 +2,15 @@
 
 Why this exists: the rmse8 fidelity gate (8 spp + denoise vs a converged
 golden, RMSE <= 1e-2) plateaus at ~0.012 on vw-van with the shipped
-rt_ldr weights. Rounds 4-5 measured and rejected every estimator- and
-post-side lever (README.md postmortem); the residual is the denoiser's
+rt_ldr weights. Earlier rounds measured and rejected every estimator-
+and post-side lever; the residual is the denoiser's
 PRIOR mismatch — the reference ships fixed weights trained on Intel's
 renderer family (TracerBoy/ML/rt_ldr.tza, loaded at
 OpenImageDenoise.cpp:855 and never adapted; OpenImageDenoise.h:219 even
-hard-disables the aux-guided variant). A TPU-native framework can do
-what a fixed DirectML graph cannot: fine-tune the same UNet on THIS
+hard-disables the aux-guided variant). A JAX framework can do what a
+fixed DirectML graph cannot: fine-tune the same UNet on THIS
 renderer's noise distribution at the gate's sample count, on the same
-chip that renders.
+device that renders.
 
 Method — noisier-target supervised fine-tuning (the noise2noise
 observation): inputs are low-spp renders, targets are INDEPENDENT
@@ -147,11 +147,12 @@ def _net_space(lin_f16: np.ndarray, expo: np.ndarray) -> np.ndarray:
 
 
 def finetune(dataset_npz: str, out_npz: str,
-             init_tza: str = "/root/reference/TracerBoy/ML/rt_ldr.tza",
+             init_weights: str | None = None,
              steps: int = 1500, lr: float = 1e-4, batch: int = 4,
              holdout_views: int = 2, seed: int = 0, log_every: int = 100,
              progress=print):
-    """Fine-tune the rt_ldr UNet; saves Flax params as float16 .npz.
+    """Fine-tune the UNet from init_weights (.tza or .npz; default the
+    committed network); saves the params as float16 .npz.
 
     Full-frame batches (inference is full-frame; crops would shift the
     receptive-field statistics), random flip augmentation — the SAME
@@ -164,7 +165,7 @@ def finetune(dataset_npz: str, out_npz: str,
     import jax.numpy as jnp
     import optax
 
-    from tracerboy_tpu.ml.oidn import load_oidn
+    from tracerboy_tpu.ml.oidn import DEFAULT_WEIGHTS, load_oidn, unet_apply
 
     d = np.load(dataset_npz)
     X = _net_space(d["inp"], d["expo"])
@@ -174,8 +175,7 @@ def finetune(dataset_npz: str, out_npz: str,
     Xh, Yh = X[hold], Y[hold]
     X, Y = X[~hold], Y[~hold]
 
-    model, variables = load_oidn(init_tza)
-    params = variables["params"]
+    params = load_oidn(init_weights or DEFAULT_WEIGHTS)
     sched = optax.cosine_decay_schedule(lr, steps)
     opt = optax.adam(sched)
     opt_state = opt.init(params)
@@ -183,7 +183,7 @@ def finetune(dataset_npz: str, out_npz: str,
     @jax.jit
     def train_step(params, opt_state, x, y):
         def loss_fn(p):
-            out = model.apply({"params": p}, x)
+            out = unet_apply(p, x, dtype=jnp.float32)
             return jnp.mean(jnp.square(out - y.astype(out.dtype)))
 
         loss, grads = jax.value_and_grad(loss_fn)(params)
@@ -192,7 +192,7 @@ def finetune(dataset_npz: str, out_npz: str,
 
     @jax.jit
     def eval_loss(params, x, y):
-        out = model.apply({"params": params}, x)
+        out = unet_apply(params, x, dtype=jnp.float32)
         return jnp.mean(jnp.square(out - y.astype(out.dtype)))
 
     def holdout(params):
@@ -227,7 +227,7 @@ def finetune(dataset_npz: str, out_npz: str,
 
 
 def save_params_npz(path: str, params: dict):
-    """Flax conv params -> flat float16 npz (~6.5 MB for rt_ldr)."""
+    """UNet params -> flat float16 npz (~6.5 MB for rt_ldr)."""
     flat = {}
     for name, p in params.items():
         flat[f"{name}.kernel"] = np.asarray(p["kernel"], np.float16)
@@ -236,11 +236,9 @@ def save_params_npz(path: str, params: dict):
     np.savez_compressed(path, **flat)
 
 
-def load_params_npz(path: str):
-    """Inverse of save_params_npz -> (model, variables)."""
+def load_params_npz(path: str) -> dict:
+    """Inverse of save_params_npz -> {layer: {kernel, bias}} (f32)."""
     import jax.numpy as jnp
-
-    from tracerboy_tpu.ml.oidn import OIDNUNet
 
     d = np.load(path)
     params = {}
@@ -248,5 +246,4 @@ def load_params_npz(path: str):
         name, kind = key.rsplit(".", 1)
         params.setdefault(name, {})[kind] = jnp.asarray(
             d[key], jnp.float32)
-    in_ch = params["enc_conv0"]["kernel"].shape[2]
-    return OIDNUNet(in_channels=in_ch), {"params": params}
+    return params

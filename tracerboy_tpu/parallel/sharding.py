@@ -1,8 +1,8 @@
 """Multi-chip scaling: pixel-tile and sample sharding over a device mesh.
 
-The reference is a single-GPU renderer (SURVEY.md section 2.8); the TPU
-rebuild scales across chips with jax.sharding instead of translating any
-queue/fence machinery:
+The reference is a single-GPU renderer (SURVEY.md section 2.8); this
+rebuild scales across devices with jax.sharding instead of translating
+any queue/fence machinery:
 
 - **Tile sharding** (primary axis): the flat pixel-id pool is sharded over
   a 1-D "tiles" mesh; the scene is replicated; every per-ray array in the
@@ -10,9 +10,11 @@ queue/fence machinery:
   SPMD with zero communication. The final image gather happens only at
   host readout — the analog of the reference's single CopyResource to the
   backbuffer per frame.
-- **Sample (spp) sharding**: every chip traces the full image with a
-  different sample index and accumulators merge with a `psum` over ICI —
-  the direct analog of data-parallel gradient accumulation.
+- **Sample (spp) sharding**: every device traces the full image with a
+  different sample index and accumulators merge with a `psum` (an
+  all-reduce; every device reaches every other at the same rate, so the
+  mesh is 1-D) — the direct analog of data-parallel gradient
+  accumulation.
 - Stats (ray counts, live lanes) reduce with the same psum.
 """
 
@@ -89,29 +91,17 @@ def render_wave_tiled(mesh, scene, params, pixel_ids, sample_index, cfg):
 
 
 def render_spp_sharded(mesh, scene, params, pixel_ids, base_sample, cfg,
-                       samples_per_device: int = 1,
-                       use_merged: bool = False):
+                       samples_per_device: int = 1):
     """Sample-sharded render step with psum-merged accumulators.
 
     Every device traces the full pixel pool at sample indices
-    base + dev * samples_per_device + k; radiance/weight sums merge over
-    ICI with psum inside shard_map. Returns the replicated accumulated
-    (radiance_sum, weight_sum, rays_traced).
-
-    use_merged=True traces each device's samples_per_device samples as
-    ONE merged k*N-lane wave (render_wave_merged): the per-bounce
-    coherence sort packs denser packets, which is the measured
-    throughput lever on the pallas backend — so a pod chip gets the same
-    merged-wave speedup a single chip does.
+    base + dev * samples_per_device + k; radiance/weight sums merge
+    across the mesh with psum inside shard_map. Returns the replicated
+    accumulated (radiance_sum, weight_sum, rays_traced).
     """
-    try:
-        from jax import shard_map
-    except ImportError:  # older jax
-        from jax.experimental.shard_map import shard_map
-
     import dataclasses
 
-    from tracerboy_tpu.trace.wavefront import render_wave_merged
+    from jax import shard_map
 
     # AOVs are per-pixel snapshots, not sums — they don't survive a psum
     # merge. The sharded step returns only the accumulator planes.
@@ -120,47 +110,35 @@ def render_spp_sharded(mesh, scene, params, pixel_ids, base_sample, cfg,
     ndev = mesh.devices.size
     dev_ids = jnp.arange(ndev, dtype=jnp.int32)
 
-    key = (id(mesh), cfg, samples_per_device, use_merged)
+    key = (id(mesh), cfg, samples_per_device)
     fn = _spp_cache.get(key)
     if fn is None:
         def per_device(dev_id, base_l, scene_l, params_l, pixel_ids_l):
             dev = dev_id[0]
             base_dev = base_l + dev * samples_per_device
-            if use_merged and samples_per_device > 1:
-                out = render_wave_merged(
-                    scene_l, params_l, pixel_ids_l, base_dev,
-                    samples_per_device, cfg_l,
-                )
-                rad = jnp.stack(
+            # Tie carries to the device id so their device-varying
+            # type is stable across fori_loop iterations.
+            vz = dev.astype(jnp.float32) * 0.0
+            rad = jnp.zeros(
+                (pixel_ids_l.shape[0], 3), jnp.float32) + vz
+            fw = jnp.zeros((pixel_ids_l.shape[0],), jnp.float32) + vz
+            rays = vz
+
+            def body(k, carry):
+                rad, fw, rays = carry
+                out = render_wave(scene_l, params_l, pixel_ids_l,
+                                  base_dev + k, cfg_l)
+                rad = rad + jnp.stack(
                     [out["radiance_r"], out["radiance_g"],
                      out["radiance_b"]], axis=-1,
                 )
-                fw = out["filter_weight"]
-                rays = out["rays_traced"]
-            else:
-                # Tie carries to the device id so their device-varying
-                # type is stable across fori_loop iterations.
-                vz = dev.astype(jnp.float32) * 0.0
-                rad = jnp.zeros(
-                    (pixel_ids_l.shape[0], 3), jnp.float32) + vz
-                fw = jnp.zeros((pixel_ids_l.shape[0],), jnp.float32) + vz
-                rays = vz
+                return (rad, fw + out["filter_weight"],
+                        rays + out["rays_traced"])
 
-                def body(k, carry):
-                    rad, fw, rays = carry
-                    out = render_wave(scene_l, params_l, pixel_ids_l,
-                                      base_dev + k, cfg_l)
-                    rad = rad + jnp.stack(
-                        [out["radiance_r"], out["radiance_g"],
-                         out["radiance_b"]], axis=-1,
-                    )
-                    return (rad, fw + out["filter_weight"],
-                            rays + out["rays_traced"])
-
-                rad, fw, rays = jax.lax.fori_loop(
-                    0, samples_per_device, body, (rad, fw, rays)
-                )
-            # Merge accumulators across the mesh over ICI.
+            rad, fw, rays = jax.lax.fori_loop(
+                0, samples_per_device, body, (rad, fw, rays)
+            )
+            # Merge accumulators across the mesh.
             rad = jax.lax.psum(rad, "tiles")
             fw = jax.lax.psum(fw, "tiles")
             rays = jax.lax.psum(rays, "tiles")

@@ -33,9 +33,7 @@ def atrous_iteration(
     position_weight_mult=1.0,
 ):
     H, W = color_var.shape[:2]
-    # Work on dense (H, W) channel planes: an (H, W, C) array pads its
-    # minor dim C to 128 lanes on TPU (see core/vec3.py), which at 25
-    # taps per iteration dominates the pass.
+    # Work on dense (H, W) channel planes (see core/vec3.py).
     cr, cg, cb = (color_var[..., k] for k in range(3))
     cvar = color_var[..., 3]
     nx, ny_, nz = (normals[..., k] for k in range(3))
@@ -45,10 +43,9 @@ def atrous_iteration(
     neighbor_dist = positions[..., 3]
     valid = (nx != 0.0) | (ny_ != 0.0) | (nz != 0.0)
 
-    # Taps = pad each plane ONCE (edge replicate) + STATIC slices: a
-    # dilated jnp.roll is a cross-tile shuffle the TPU pays for per tap
-    # (profiled at ~2.5 ms per iteration at 512x512); static slices of
-    # one padded buffer fuse into the surrounding arithmetic.
+    # Taps = pad each plane ONCE (edge replicate) + STATIC slices:
+    # static slices of one padded buffer fuse into the surrounding
+    # arithmetic, where a dilated jnp.roll per tap would not.
     pad = 2 * step
     epad = lambda p: jnp.pad(p, pad, mode="edge")
     p_luma = epad(center_luma)

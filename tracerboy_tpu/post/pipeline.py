@@ -39,10 +39,8 @@ def luminance_histogram(color: jnp.ndarray, bins: int = HISTOGRAM_BINS,
     t = (log_luma + lum_range / 2.0) / lum_range
     idx = jnp.clip((t * (bins - 2)).astype(jnp.int32) + 1, 1, bins - 1)
     idx = jnp.where(luma < 1e-8, 0, idx)
-    # Histogram by sort + bin-edge search: a scatter-add of H*W indices
-    # runs at TPU's per-row scatter rate (~12 M/s — tens of ms per
-    # frame); sorting the indices and diffing searchsorted bin edges is
-    # sub-millisecond and exact.
+    # Histogram by sort + bin-edge search (sorting the indices and
+    # diffing searchsorted bin edges; exact).
     sorted_idx = jnp.sort(idx.reshape(-1))
     edges = jnp.searchsorted(
         sorted_idx, jnp.arange(bins + 1, dtype=jnp.int32)

@@ -153,9 +153,7 @@ def temporal_accumulate(
     """Returns (color+variance alpha (H, W, 4), new moments (H, W, 3)).
 
     Internally everything runs on dense (H, W) channel planes — the
-    (H, W, 3) forms only appear at the interface. An (H, W, 3) op pads
-    its 3-lane minor dim to 128 on TPU; the plane rewrite took the
-    512x512 pass from ~8.5 ms to ~2 ms.
+    (H, W, 3) forms only appear at the interface.
     """
     def wdiv0(ws):
         return jnp.maximum(ws, 1e-8)
@@ -191,10 +189,7 @@ def temporal_accumulate(
     # ALL FOUR bilinear taps ride ONE row gather: the 9 packed channels
     # (history rgb + moments + prev world pos) of the 2x2 neighborhood
     # are precomputed into a 36-wide quad table with static slices
-    # (cheap), so the per-frame gather count drops 4x. Profiled: each
-    # (262k, 9)-row gather costs ~2.5 ms on v5e — the 8 tap gathers of
-    # the two TAA passes were the single largest cost of the RealTime
-    # frame.
+    # (cheap), so the per-frame gather count drops 4x.
     packed = jnp.concatenate(
         [history, moment_history, prev_world_pos[..., :3]], axis=-1
     )

@@ -4,7 +4,7 @@ The reference's kernel doubles as a self-contained ShaderToy demo with
 two compiled-in scenes — a sphere-garden benchmark and a cornell box —
 built from analytic sphere/box/bounded-plane primitives
 (kernel.glsl:13-25 IS_SHADER_TOY, 260-440 intersectors, 660-745 scene
-tables, 897-940 material table). The TPU-first equivalent TESSELLATES
+tables, 897-940 material table). This equivalent TESSELLATES
 the same primitives into the standard triangle pipeline: one scene
 representation, one traversal path, no second intersector stack to
 maintain — and the demo still needs zero on-disk assets:

@@ -2,7 +2,7 @@
 
 Closes the reference's openvdb capability (TracerBoy.cpp:1096-1184: load
 one density grid into a 3D texture + world bounds; vendored openvdb,
-compile-disabled via USE_OPENVDB 0) TPU-natively: a `.vdb` density grid
+compile-disabled via USE_OPENVDB 0): a `.vdb` density grid
 decodes into the existing VolumeIR (dense grid + bounds), which the
 wavefront's delta-tracking medium actually renders.
 

@@ -4,7 +4,7 @@ The reference's openvdb path (TracerBoy.cpp:1096-1184, compile-disabled
 via USE_OPENVDB 0 in pch.h:5) loads one density grid into an R32 3D
 texture plus world bounds (m_volumeMin/Max, TracerBoy.h:733) — and stops
 there; no shader ever samples it. This module provides the same
-capability TPU-natively (a dense density grid + bounds on the scene
+capability (a dense density grid + bounds on the scene
 pytree) and the wavefront actually renders it (delta-tracking medium,
 trace/wavefront.py), going past the reference's parked implementation.
 

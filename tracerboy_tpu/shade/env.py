@@ -9,6 +9,7 @@ scale (ConfigConstants, SharedShaderStructs.h:77-83).
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 
@@ -18,7 +19,10 @@ def sample_environment(direction, env_map, env_transform, env_color_scale):
     env_map: (H, W, 3); env_transform: (3, 3) world->env rotation;
     env_color_scale: (3,).
     """
-    v = direction @ env_transform.T
+    # Full f32 precision: a default-precision f32 matmul may run in
+    # reduced precision (TF32) on the GPU and round the directions.
+    v = jnp.matmul(direction, env_transform.T,
+                   precision=jax.lax.Precision.HIGHEST)
     v = v / jnp.maximum(
         jnp.linalg.norm(v, axis=-1, keepdims=True), 1e-12
     )
@@ -109,8 +113,7 @@ def sample_environment_quad_soa(d, env_quad, env_h: int, env_w: int,
 
     env_quad: (H*W, 12) — row i holds the 2x2 bilinear neighborhood of
     texel i (compile.py as_pytree). One wide-row gather replaces the 12
-    per-plane gathers of sample_environment_soa: measured 57x cheaper on
-    TPU, where gather cost is per-row, not per-element.
+    per-plane gathers of sample_environment_soa.
     """
     from tracerboy_tpu.core import vec3 as v3
 
@@ -141,8 +144,7 @@ def sample_environment_quad_soa(d, env_quad, env_h: int, env_w: int,
     idx = y0c * W + x0w
     if gather_mask is not None:
         # Lanes whose result is discarded gather the (cache-hot) first
-        # row instead of a random texel — random-row gathers from a big
-        # table dominate this op's cost on TPU.
+        # row instead of a random texel.
         idx = jnp.where(gather_mask, idx, 0)
     rows = env_quad[idx]                     # (N, 12)
     w00 = (1 - tx) * (1 - ty)

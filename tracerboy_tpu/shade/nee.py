@@ -52,8 +52,9 @@ def sample_one_light_soa(
     seed=0,
     sampler="pcg",
 ):
-    """SoA light sampling: V3 fields, dense (N,) layouts, transposed
-    one-hot table lookups. Semantics identical to sample_one_light."""
+    """SoA light sampling: V3 fields, dense (N,) layouts, column gathers
+    from the fused light table. Semantics identical to
+    sample_one_light."""
     from tracerboy_tpu.core import vec3 as v3
     from tracerboy_tpu.shade.surface import _take_cols
 
@@ -67,8 +68,7 @@ def sample_one_light_soa(
     table_t = _light_table_t(lights)
 
     def rows_of(idx):
-        row = _take_cols(table_t, idx)
-        return row
+        return _take_cols(table_t, idx)
 
     def point_of(row, bu, bv, bw):
         p = v3.V3(
@@ -177,10 +177,8 @@ def _random_barycentric(r0, r1):
 
 
 def _light_rows(lights, idx):
-    """All light columns for `idx` via one one-hot matmul (small table)."""
+    """All light columns for `idx` via one row gather."""
     import jax.numpy as _jnp
-
-    from tracerboy_tpu.core.gather import take_rows
 
     table = _jnp.concatenate(
         [
@@ -193,7 +191,7 @@ def _light_rows(lights, idx):
         ],
         axis=1,
     )
-    row = take_rows(table, idx)
+    row = table[idx]
     return dict(
         p0=row[..., 0:3], p1=row[..., 3:6], p2=row[..., 6:9],
         n0=row[..., 9:12], n1=row[..., 12:15], n2=row[..., 15:18],

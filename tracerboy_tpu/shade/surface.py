@@ -61,8 +61,7 @@ def _sample_image(tex_images, tex_sizes, image_idx, u, v):
 
 def _rec_rows(recs):
     """Fused (n_tex, 13) texture-record row table. One wide-row gather
-    per lookup replaces 9 per-plane gathers (gather cost on TPU is per
-    row, not per element). Columns: 0 ttype, 1 flags, 2 uscale,
+    per lookup replaces 9 per-plane gathers. Columns: 0 ttype, 1 flags, 2 uscale,
     3 vscale, 4 image_idx, 5 sub1, 6 sub2, 7:10 color1, 10:13 color2.
     Scene-constant: XLA hoists the concat out of the bounce loop."""
     f = jnp.float32
@@ -158,15 +157,13 @@ def eval_texture(recs, tex_images, tex_sizes, tex_id, uv,
 
 
 def _take_cols(table_t, idx):
-    """Transposed one-hot lookup: (k, M) table x (N,) idx -> (k, N).
+    """Column lookup: (k, M) table x (N,) idx -> (k, N), a plain gather
+    (exact for every column, the integer-valued ones included).
 
-    Keeps the result's minor dim = N (dense lanes); each row slices out
-    as a clean (N,) component.
+    Keeps the result's minor dim = N; each row slices out as a clean
+    (N,) component.
     """
-    M = table_t.shape[1]
-    iota = jnp.arange(M, dtype=idx.dtype)
-    onehot = (iota[:, None] == idx[None, :]).astype(jnp.float32)  # (M, N)
-    return jnp.dot(table_t, onehot, preferred_element_type=jnp.float32)
+    return table_t[:, idx]
 
 
 def _mat_table_t(mats) -> jnp.ndarray:
@@ -211,8 +208,8 @@ def fetch_material_soa(
     """SoA material fetch: V3 fields + (N,) scalars, dense layouts.
 
     Same semantics as fetch_material (mix resolution, texture overrides,
-    SSS conversion); the whole record comes from one (21, M) x (M, N)
-    matmul.
+    SSS conversion); the whole record comes from one column gather of
+    the fused (21, M) table.
     """
     from tracerboy_tpu.core import vec3 as v3
     from tracerboy_tpu.shade.bsdf import artist_albedo_to_absorption_soa
@@ -345,19 +342,16 @@ def fetch_material(
     emissive suppression, stochastic mix resolution, albedo/emissive/
     specular map overrides, and the SSS artist-albedo conversion.
 
-    Small-table lookups run as one-hot MXU matmuls (core/gather.py);
     `has_mix` / `has_textures` are static flags letting scenes without
     those features skip the work entirely (set by the caller from
     compile-time scene facts).
     """
-    from tracerboy_tpu.core.gather import take_rows
-
     mats = scene["materials"]
     M = mats["flags"].shape[0]
     mid = jnp.clip(mat_id, 0, M - 1)
 
     # Fuse all material columns into one (M, k) table so the whole fetch
-    # is a single one-hot matmul.
+    # is a single row gather.
     table = jnp.concatenate(
         [
             mats["albedo"],                       # 0:3
@@ -380,7 +374,7 @@ def fetch_material(
     if has_mix:
         # Stochastic mix resolution (RayGenCommon.h:308-319): albedo
         # packs (mat0, mat1, amount); one level like the reference.
-        row0 = take_rows(table, mid)
+        row0 = table[mid]
         flags0 = jnp.round(row0[..., 15]).astype(jnp.int32)
         is_mix = (flags0 & MIX_FLAG) != 0
         amount = row0[..., 2]
@@ -391,7 +385,7 @@ def fetch_material(
         )
         mid = jnp.where(is_mix, jnp.clip(mix_id, 0, M - 1), mid)
 
-    row = take_rows(table, mid)
+    row = table[mid]
     albedo = row[..., 0:3]
     emissive = row[..., 3:6]
     ior = row[..., 6]

@@ -3,8 +3,8 @@
 The reference loads a density grid + bounds (TracerBoy.cpp:1096-1184,
 compile-disabled) but never shades it; its kernel cites the Pixar
 production-volume-rendering course for the intended anisotropic phase
-(kernel.glsl:1200). This module supplies that missing shading,
-TPU-native: fixed-iteration masked walks (no data-dependent loops under
+(kernel.glsl:1200). This module supplies that missing shading
+as wavefront code: fixed-iteration masked walks (no data-dependent loops under
 jit), trilinear density taps via single wide-row gathers from a
 precomputed (D*H*W, 8) corner-stencil table (nearest-neighbor plane
 kept as fallback), and spectral null-collision weights so colored

@@ -153,7 +153,7 @@ def generate_primary_rays_soa(
     """SoA primary rays: (N,)-component V3 origins/directions.
 
     Same camera model as generate_primary_rays, with every vector kept as
-    dense (N,) components (TPU layout — see core/vec3.py).
+    dense (N,) components (see core/vec3.py).
     """
     from tracerboy_tpu.core import vec3 as v3
 

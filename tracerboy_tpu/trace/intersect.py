@@ -5,8 +5,8 @@ The reference's hot intersection is the watertight Woop/Benthin/Wald
 triangle test inside the traversal ubershader
 (D3D12RaytracingFallback/src/TraverseFunction.hlsli:232-313) plus the
 box slab test (TraverseFunction.hlsli:204-221). Here everything is batched
-jnp over flat ray pools: a (N,)-ray x (T,)-triangle test broadcasts to
-(N, T) on the VPU, which doubles as:
+jnp over flat ray pools: a (N,)-ray x (T,)-triangle test, which doubles
+as:
   - the ground-truth reference the BVH traversal is validated against
     (the analog of CpuBVH2Builder vs GpuBvh2Builder A/B debugging), and
   - the fast path for tiny scenes where a BVH would only add gathers.
@@ -149,8 +149,8 @@ def brute_force_closest(orig, direc, v0, v1, v2, t_max=None,
     """Closest hit over all triangles by exhaustive (N, T) broadcast.
 
     The ground-truth oracle for traversal tests. The production brute
-    backend uses brute_force_closest_soa below (dense layouts); this
-    broadcast form pads its minor dims on TPU and is test-only.
+    backend uses brute_force_closest_soa below (dense layouts, O(N)
+    memory); this (N, T) broadcast form is test-only.
     watertight=True swaps in the Woop/Benthin/Wald test (the reference's
     traversal intersector) for edge-crack-free results.
     """
@@ -182,9 +182,9 @@ def brute_force_anyhit(orig, direc, v0, v1, v2, t_max):
 
 # ----------------------------------------------------------------------------
 # SoA variants: dense (N,) layouts, per-triangle scalar broadcasting.
-# The (N, T) broadcast forms above pad their minor dims to 128 lanes on
-# TPU; these loop over triangles with scalar vertex loads instead, keeping
-# every array a fully-tiled (N,) vector.
+# The (N, T) broadcast forms above hold an (N, T) intermediate; these
+# loop over triangles with scalar vertex loads instead, keeping every
+# array a dense (N,) vector.
 
 
 def _tri_scalar(tris, i):

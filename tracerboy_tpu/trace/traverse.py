@@ -1,9 +1,11 @@
 """Wide-BVH traversal, vectorized over flat ray pools.
 
-The TPU replacement for the reference's per-thread stack traversal state
-machine (D3D12RaytracingFallback/src/TraverseFunction.hlsli:537-784:
-two-level stack machine, groupshared 16-deep stacks, slab + watertight
-triangle tests). Design differences, deliberately TPU-first:
+The data-parallel replacement for the reference's per-thread stack
+traversal state machine (D3D12RaytracingFallback/src/
+TraverseFunction.hlsli:537-784: two-level stack machine, groupshared
+16-deep stacks, slab + watertight triangle tests). This is the BVH path
+of the wavefront for scenes above the brute-force crossover. Design
+differences:
 
 - All rays advance in lock-step through their own short stacks (SoA
   (N, DEPTH) int32), with lane masking instead of divergent branches —

@@ -166,9 +166,7 @@ class PerformanceSettings:
     # disabled at 1479) made to work. Straight-line approximation; off
     # by default for reference-parity transport.
     transparent_shadows: bool = False
-    # Wavefront-specific (no reference analog): rays processed per wave and
-    # whether pools are compacted between bounces.
-    enable_ray_compaction: bool = True
+    # Wavefront-specific (no reference analog): rays processed per wave.
     fixed_wave_size: int = 0  # 0 = whole image per wave
 
 
